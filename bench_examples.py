@@ -31,10 +31,6 @@ REFBIN = "/tmp/pamlbuild/src"
 def _setup_jax():
     import jax
     jax.config.update("jax_enable_x64", True)
-    cache = os.path.expanduser("~/.cache/paml_tpu_jax")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 def _cpu():
@@ -42,25 +38,22 @@ def _cpu():
     return jax.default_device(jax.devices("cpu")[0])
 
 
-def _tpu_present():
+def _gpu_present():
     import jax
-    try:
-        return any(d.platform != "cpu" for d in jax.devices())
-    except RuntimeError:
-        return False
+    return jax.devices()[0].platform == "gpu"
 
 
 def _ours_baseml(model, seqfile, treefile, device="cpu", **kw):
     """device='cpu': classic all-f64 on the host (comparable to the C
-    reference).  device='tpu': the production staged policy — f32
-    value+grad on the chip, f64 polish on the host (optim.maximize_policy)."""
+    reference).  device='gpu': the production staged policy — f32 stage
+    and f64 polish, both on the GPU (optim.maximize_policy)."""
     _setup_jax()
     import jax
     import jax.numpy as jnp
     from paml_tpu.apps import baseml
     t0 = time.perf_counter()
     spec = baseml.BasemlSpec(model=model, cleandata=True, **kw)
-    if device == "tpu":
+    if device == "gpu":
         res = baseml.fit(f"{REF}/{seqfile}", f"{REF}/{treefile}", spec)
         cold = time.perf_counter() - t0
         t0 = time.perf_counter()   # warm: persistent compile cache hit
@@ -89,7 +82,7 @@ def _ours_codeml(seqfile, treefile, tree_index=0, device="cpu", **kw):
     trees = treeio.read_trees(f"{REF}/{treefile}", data.names)
     topo = from_treenode(trees[tree_index], data.names)
     spec = codeml.CodemlSpec(cleandata=True, **kw)
-    if device == "tpu":
+    if device == "gpu":
         res = codeml.fit_packed(data, topo, spec)
         cold = time.perf_counter() - t0
         t0 = time.perf_counter()   # warm: persistent compile cache hit
@@ -188,14 +181,14 @@ def main():
     with_ref = "--no-reference" not in sys.argv
     out = {}
 
-    tpu = _tpu_present()
+    gpu = _gpu_present()
 
     # 1. brown JC69 + K80
     for m, mi in (("JC69", 0), ("K80", 1)):
         row = {"ours": _ours_baseml(m, "brown.nuc", "brown.trees")}
-        if tpu:
-            row["ours_tpu"] = _ours_baseml(m, "brown.nuc", "brown.trees",
-                                           device="tpu")
+        if gpu:
+            row["ours_gpu"] = _ours_baseml(m, "brown.nuc", "brown.trees",
+                                           device="gpu")
         if with_ref:
             row["reference"] = _ref_run("baseml", BASEML_CTL.format(
                 seq=f"{REF}/brown.nuc", tree=f"{REF}/brown.trees",
@@ -206,10 +199,10 @@ def main():
     # 2. horai GTR + G5
     row = {"ours": _ours_baseml("REV", "horai.nuc", "horai.trees",
                                 fix_alpha=False, alpha=0.5, ncatG=5)}
-    if tpu:
-        row["ours_tpu"] = _ours_baseml("REV", "horai.nuc", "horai.trees",
+    if gpu:
+        row["ours_gpu"] = _ours_baseml("REV", "horai.nuc", "horai.trees",
                                        fix_alpha=False, alpha=0.5,
-                                       ncatG=5, device="tpu")
+                                       ncatG=5, device="gpu")
     if with_ref:
         row["reference"] = _ref_run("baseml", BASEML_CTL.format(
             seq=f"{REF}/horai.nuc", tree=f"{REF}/horai.trees",
@@ -219,9 +212,9 @@ def main():
 
     # 3. abglobin codon M0
     row = {"ours": _ours_codeml("abglobin.nuc", "abglobin.trees")}
-    if tpu:
-        row["ours_tpu"] = _ours_codeml("abglobin.nuc", "abglobin.trees",
-                                       device="tpu")
+    if gpu:
+        row["ours_gpu"] = _ours_codeml("abglobin.nuc", "abglobin.trees",
+                                       device="gpu")
     if with_ref:
         row["reference"] = _ref_run("codeml", CODEML_CTL.format(
             seq=f"{REF}/abglobin.nuc", tree=f"{REF}/abglobin.trees",
@@ -235,11 +228,11 @@ def main():
         row = {"ours": _ours_codeml("lysozyme/lysozymeSmall.txt",
                                     "lysozyme/lysozymeSmall.trees",
                                     NSsites=ns, ncatG=ncatg, omega=0.5)}
-        if tpu:
-            row["ours_tpu"] = _ours_codeml(
+        if gpu:
+            row["ours_gpu"] = _ours_codeml(
                 "lysozyme/lysozymeSmall.txt",
                 "lysozyme/lysozymeSmall.trees",
-                NSsites=ns, ncatG=ncatg, omega=0.5, device="tpu")
+                NSsites=ns, ncatG=ncatg, omega=0.5, device="gpu")
         if with_ref:
             row["reference"] = _ref_run("codeml", CODEML_CTL.format(
                 seq=f"{REF}/lysozyme/lysozymeSmall.txt",
@@ -251,10 +244,10 @@ def main():
                                 "lysozyme/lysozymeSmall.trees",
                                 tree_index=1, model=2, NSsites=2,
                                 omega=1.5)}
-    if tpu:
-        row["ours_tpu"] = _ours_codeml(
+    if gpu:
+        row["ours_gpu"] = _ours_codeml(
             "lysozyme/lysozymeSmall.txt", "lysozyme/lysozymeSmall.trees",
-            tree_index=1, model=2, NSsites=2, omega=1.5, device="tpu")
+            tree_index=1, model=2, NSsites=2, omega=1.5, device="gpu")
     if with_ref:
         # the reference needs a tree file holding only the labeled tree
         from paml_tpu.io import treeio as _tio
@@ -381,11 +374,11 @@ def main():
                                 "MouseLemurs/MouseLemurs.trees",
                                 clock=3, fix_alpha=False, alpha=0.5,
                                 ncatG=5, kappa=2.3)}
-    if tpu:
-        row["ours_tpu"] = _ours_baseml(
+    if gpu:
+        row["ours_gpu"] = _ours_baseml(
             "F84", "MouseLemurs/MouseLemurs.nuc",
             "MouseLemurs/MouseLemurs.trees", clock=3, fix_alpha=False,
-            alpha=0.5, ncatG=5, kappa=2.3, device="tpu")
+            alpha=0.5, ncatG=5, kappa=2.3, device="gpu")
     if with_ref:
         row["reference"] = _ref_run("baseml", BASEML_CTL.format(
             seq=f"{REF}/MouseLemurs/MouseLemurs.nuc",
@@ -398,7 +391,7 @@ def main():
     # 8. virtual-mesh scaling curve: sharded objective eval throughput on
     # 1/2/4/8 CPU virtual devices.  CPU vdevs share host cores, so this
     # measures partitioning overhead (plumbing), not speedup — the real
-    # scaling axis is ICI on a TPU pod (shard_map over the pattern mesh)
+    # scaling needs several GPUs (shard_map over the pattern mesh)
     out["vdev_scaling"] = _vdev_scaling()
     print(f"vdev scaling: {out['vdev_scaling']}", flush=True)
 

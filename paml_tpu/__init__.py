@@ -1,33 +1,30 @@
-"""paml_tpu: TPU-native phylogenetics (PAML capabilities, JAX/Pallas).
+"""paml_tpu: phylogenetic analysis by maximum likelihood in JAX (PAML
+capabilities).
 
-On import, a persistent XLA compilation cache is enabled (unless the
-user already configured one or set PAML_TPU_NO_CACHE=1).  First-time
-compilation of the larger likelihood programs costs minutes on the TPU
-backend; the cache makes every later run of the same model/data shape
-start in seconds, including across processes and machines sharing the
-cache directory.
+Importing the package sets two process-wide JAX options:
+
+* float32 matrix products run at ``Precision.HIGHEST`` (true f32; on GPUs
+  the default would allow TF32, which keeps about three decimal digits —
+  far coarser than the likelihood needs).  float64 is unaffected.
+* the persistent compilation cache: when ``JAX_COMPILATION_CACHE_DIR`` is
+  set, JAX reads it and nothing here overrides it; otherwise the cache is
+  ``<checkout>/.jax_cache``.  Compiling the larger likelihood programs
+  takes tens of seconds; the cache lets later runs of the same model and
+  data shape skip it.
 """
 import os as _os
 
-
-def _enable_compilation_cache() -> None:
-    if _os.environ.get("PAML_TPU_NO_CACHE"):
-        return
-    try:
-        import jax
-        if jax.config.jax_compilation_cache_dir:
-            return          # user already configured one
-        cache = _os.environ.get("PAML_TPU_CACHE_DIR")
-        if not cache:
-            repo = _os.path.dirname(_os.path.dirname(_os.path.abspath(
-                __file__)))
-            cache = (_os.path.join(repo, ".jax_cache")
-                     if _os.access(repo, _os.W_OK)
-                     else _os.path.expanduser("~/.cache/paml_tpu/jax"))
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:       # pragma: no cover - never block import
-        pass
+DEFAULT_CACHE = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
 
 
-_enable_compilation_cache()
+def _configure_jax() -> None:
+    import jax
+
+    jax.config.update("jax_default_matmul_precision", "highest")
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE)
+
+
+_configure_jax()

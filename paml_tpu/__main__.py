@@ -22,6 +22,13 @@ default ctl names match the reference (codeml.ctl, baseml.ctl, yn00.ctl).
 from __future__ import annotations
 
 import sys
+import time
+
+
+def _fit_note(res, t0: float) -> str:
+    """'(N evaluations, T s)' for a finished fit started at t0."""
+    n = res.fit.n_eval if res.fit is not None else 0
+    return f"({n} evaluations, {time.perf_counter() - t0:.2f} s)"
 
 
 def _write_tree_with_blens(topo, blens_by_node, names=True):
@@ -130,7 +137,9 @@ def run_baseml(ctl_path: str) -> None:
         out.write(f"ns = {data.ns}  ls = {data.ls}  npatt = {data.npatt}\n")
         for itree, tree in enumerate(trees):
             topo = from_treenode(tree, data.names)
+            t_fit = time.perf_counter()
             res = baseml.fit_packed(data, topo, spec)
+            note = _fit_note(res, t_fit)
             bl = dict(zip(res.branch_nodes.tolist(), res.blens.tolist()))
             out.write(f"\nTREE # {itree + 1}\n")
             out.write(f"lnL(ntime: {len(res.blens)}  np: {res.np}): "
@@ -171,35 +180,34 @@ def run_baseml(ctl_path: str) -> None:
                               + " ".join(f"{v:.5f}" for v in p4) + "\n")
                 continue
             # side outputs when the single-gene hooks exist (one-shot
-            # f64 evaluations -> host CPU; chip is for the f32 fits)
+            # f64 evaluations)
             import jax.numpy as jnp
-            with jax.default_device(jax.devices("cpu")[0]):
-                neg, unpack, x0b, bb = baseml.make_objective(data, topo,
-                                                             spec)
-                xj = jnp.asarray(res.x)
-                if hasattr(neg, "site_loglik"):
-                    site_lnf_trees.append(
-                        np.asarray(neg.site_loglik(xj)))
-                if (rate_ancestor and hasattr(neg, "class_posterior")
-                        and itree == 0):
-                    post, r, w = neg.class_posterior(xj)
-                    if np.asarray(r).shape[0] > 1:
-                        write_rates("rates", 0, np.asarray(r),
-                                    np.asarray(w), data.site_pattern,
-                                    np.asarray(post), data.fpatt)
-                    from .apps.ancestral import marginal_reconstruction
-                    P, piC, w2, _ = neg.model_at(xj)
-                    best, prob, _p = marginal_reconstruction(
-                        P, data.tip_partials, topo, piC, w2, data.fpatt)
-                    letters = "TCAG"
-                    node_ids = [i + 1
-                                for i in range(topo.ns, topo.nnode)]
-                    best_txt = [[letters[s] for s in row]
-                                for row in best]
-                    write_rst_ancestral(frst, data.names, node_ids,
-                                        best_txt, prob,
-                                        data.site_pattern)
-            print(f"tree {itree + 1}: lnL = {res.lnL:.6f}")
+            neg, unpack, x0b, bb = baseml.make_objective(data, topo,
+                                                         spec)
+            xj = jnp.asarray(res.x)
+            if hasattr(neg, "site_loglik"):
+                site_lnf_trees.append(
+                    np.asarray(neg.site_loglik(xj)))
+            if (rate_ancestor and hasattr(neg, "class_posterior")
+                    and itree == 0):
+                post, r, w = neg.class_posterior(xj)
+                if np.asarray(r).shape[0] > 1:
+                    write_rates("rates", 0, np.asarray(r),
+                                np.asarray(w), data.site_pattern,
+                                np.asarray(post), data.fpatt)
+                from .apps.ancestral import marginal_reconstruction
+                P, piC, w2, _ = neg.model_at(xj)
+                best, prob, _p = marginal_reconstruction(
+                    P, data.tip_partials, topo, piC, w2, data.fpatt)
+                letters = "TCAG"
+                node_ids = [i + 1
+                            for i in range(topo.ns, topo.nnode)]
+                best_txt = [[letters[s] for s in row]
+                            for row in best]
+                write_rst_ancestral(frst, data.names, node_ids,
+                                    best_txt, prob,
+                                    data.site_pattern)
+            print(f"tree {itree + 1}: lnL = {res.lnL:.6f}  {note}")
         if site_lnf_trees:
             write_lnf("lnf", data.ls, data.fpatt, site_lnf_trees)
         if len(site_lnf_trees) > 1:
@@ -285,20 +293,17 @@ def run_codeml(ctl_path: str) -> None:
         # 2ML.* matrices written like src/yn00.c:141-167)
         from .apps import pairwise as pw
         from .io.outputs import write_pairwise_matrix
-        # tiny 2-seq f64 fits: run on the host CPU even when the CLI
-        # defaults to the accelerator (emulated f64 would be slower)
-        with jax.default_device(jax.devices("cpu")[0]):
-            if extras["runmode"] == -2:
-                res = pw.pairwise_codon(data, codonf=spec.codonf,
-                                        icode=spec.icode,
-                                        kappa0=spec.kappa,
-                                        omega0=spec.omega,
-                                        fix_kappa=spec.fix_kappa)
-            else:
-                res = pw.bayes_pairwise_codon(data, codonf=spec.codonf,
-                                              icode=spec.icode,
-                                              kappa0=spec.kappa,
-                                              omega0=spec.omega)
+        if extras["runmode"] == -2:
+            res = pw.pairwise_codon(data, codonf=spec.codonf,
+                                    icode=spec.icode,
+                                    kappa0=spec.kappa,
+                                    omega0=spec.omega,
+                                    fix_kappa=spec.fix_kappa)
+        else:
+            res = pw.bayes_pairwise_codon(data, codonf=spec.codonf,
+                                          icode=spec.icode,
+                                          kappa0=spec.kappa,
+                                          omega0=spec.omega)
         ns = data.ns
         mats = {q: np.zeros((ns, ns)) for q in ("t", "dS", "dN")}
         with open(outfile, "w") as out:
@@ -366,10 +371,12 @@ def run_codeml(ctl_path: str) -> None:
             sp = dataclasses.replace(spec, NSsites=ns_model)
             for itree, tree in enumerate(trees):
                 topo = from_treenode(tree, data.names)
+                t_fit = time.perf_counter()
                 if sp.seqtype in (2, 3):
                     res = codeml.fit_aa_packed(data, topo, sp)
                 else:
                     res = codeml.fit_packed(data, topo, sp)
+                note = _fit_note(res, t_fit)
                 bl = dict(zip(res.branch_nodes.tolist(), res.blens.tolist()))
                 out.write(f"\nModel NSsites={ns_model}  TREE # {itree + 1}\n")
                 out.write(f"lnL(ntime: {len(res.blens)}  np: {res.np}): "
@@ -391,11 +398,9 @@ def run_codeml(ctl_path: str) -> None:
                         and sp.clock == 0 and sp.fix_blength != 2):
                     _write_branch_dnds(out, data, sp, res)
                 # side outputs on the first NSsites model (reference
-                # layout: one lnf per run; rst accumulates per model).
-                # These are one-shot f64 evaluations: keep them on the
-                # host CPU (the accelerator path is f32-staged fits)
+                # layout: one lnf per run; rst accumulates per model):
+                # one-shot f64 evaluations at the MLE
                 if sp.seqtype == 1 and not sp.aaDist:
-                  with jax.default_device(jax.devices("cpu")[0]):
                     neg, unpack, classes_for, *_r = \
                         codeml.make_codon_objective(data, topo, sp)
                     import jax.numpy as jnp
@@ -421,9 +426,8 @@ def run_codeml(ctl_path: str) -> None:
                 if (sp.seqtype == 1 and sp.model == 2 and ns_model == 2
                         and itree == 0):
                     # branch-site model A BEB (reference:
-                    # lfunNSsites_ACD, src/codeml.c:6827); f64 grid on CPU
-                    with jax.default_device(jax.devices("cpu")[0]):
-                        acd = bebmod.beb_branchsite_A(data, topo, sp, res)
+                    # lfunNSsites_ACD, src/codeml.c:6827); f64 grid
+                    acd = bebmod.beb_branchsite_A(data, topo, sp, res)
                     post = acd["postSite"]
                     frst.write("\nBayes Empirical Bayes (BEB) "
                                "probabilities for 4 classes "
@@ -446,8 +450,7 @@ def run_codeml(ctl_path: str) -> None:
                             out.write(f"{s_i + 1:6d} {pp:.3f}{sig}\n")
                 if (sp.seqtype == 1 and sp.model == 0
                         and ns_model in (2, 8) and itree == 0):
-                    with jax.default_device(jax.devices("cpu")[0]):
-                        spbeb = bebmod.beb(data, topo, sp, res)
+                    spbeb = bebmod.beb(data, topo, sp, res)
                     sites = bebmod.positive_sites(data, spbeb, 0.5)
                     out.write("BEB positively selected sites "
                               "(P>0.5; * P>0.95, ** P>0.99):\n")
@@ -462,7 +465,7 @@ def run_codeml(ctl_path: str) -> None:
                         out.write(line)
                         frst.write(line)
                 print(f"NSsites={ns_model} tree {itree + 1}: "
-                      f"lnL = {res.lnL:.6f}")
+                      f"lnL = {res.lnL:.6f}  {note}")
         # lnf + RELL/KH/SH tree comparison over trees (reference:
         # src/codeml.c:623-689 + rell, src/treesub.c:5844)
         if site_lnf_trees:
@@ -736,38 +739,23 @@ def run_chi2(args: list[str]) -> None:
 def _init_jax_backend(want_accel: bool = False) -> None:
     """Pick the CLI compute device.
 
-    The ML fit programs (codeml/baseml/basemlg) default to the
-    accelerator when one is attached: fits run the staged policy
-    (optim.maximize_policy) — f32 value+grad on the chip (native fast
-    path) with a float64 polish on the host CPU from the f32 optimum.
-    Emulated f64 on TPU is never used for a hot path (slow and
-    numerically fragile for stiff codon models).  Programs whose inner
-    loops are still f64 (mcmctree, yn00, evolver, ...) pin to CPU.
-    PAML_TPU_CLI_DEVICE=cpu|tpu overrides either default."""
+    The ML fit programs (codeml/baseml/basemlg) run on JAX's default
+    backend: the GPU when one is present, otherwise the CPU.  A GPU that
+    is present but fails to start is an error, not a silent switch to the
+    CPU.  Programs driven by host-side loops of small steps (mcmctree,
+    yn00, evolver, pamp, ...) pin to the CPU, where each step costs no
+    device dispatch.  PAML_TPU_CLI_DEVICE=cpu pins every program to the
+    CPU."""
     import os
 
     import jax
 
-    # persistent compilation cache: repeat invocations of the same
-    # model/shape skip XLA compilation entirely (the reference C's main
-    # wall-time edge on small datasets is our compile time)
-    cache = os.environ.get("PAML_TPU_COMPILE_CACHE",
-                           os.path.expanduser("~/.cache/paml_tpu_jax"))
-    if cache and cache != "0":
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          0.5)
-
     dev = os.environ.get("PAML_TPU_CLI_DEVICE", "auto").lower()
-    use_accel = (dev == "tpu") or (dev == "auto" and want_accel)
-    if not use_accel:
+    if dev not in ("auto", "cpu"):
+        raise ValueError(f"PAML_TPU_CLI_DEVICE={dev!r}: expected auto or cpu")
+    if dev == "cpu" or not want_accel:
         jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.devices()
-    except RuntimeError:
-        jax.config.update("jax_platforms", "cpu")
-        jax.devices()
+    jax.devices()
 
 
 def main(argv: list[str] | None = None) -> None:

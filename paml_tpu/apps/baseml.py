@@ -1,6 +1,6 @@
 """baseml: maximum likelihood for nucleotide alignments.
 
-TPU-native counterpart of the reference program (src/baseml.c): same model
+JAX counterpart of the reference program (src/baseml.c): same model
 family and fitting capabilities, built as a single jitted objective
 (pattern likelihoods + gamma mixture + closed-form/spectral P(t)) optimized
 with exact autodiff gradients (replacing `ming2`'s finite differences,

@@ -8,7 +8,7 @@ GetInitialsClock56Step3 (:9687), SetBranchRates (:9620), ReadTreeSeqs
 from the species tree and fossil calibrations are point ages fixed with
 '@' in the species tree.
 
-TPU-native redesign: one jitted objective per step, exact autodiff
+Redesign: one jitted objective per step, exact autodiff
 gradients (replacing ming2's finite differences), exact second
 derivatives for the branch-length variances used by the AHRS smoothing
 objective (replacing minB's approximate curvature).

@@ -1,6 +1,6 @@
 """codeml: maximum likelihood for codon (and amino-acid) alignments.
 
-TPU-native counterpart of the reference program (src/codeml.c).  All site
+JAX counterpart of the reference program (src/codeml.c).  All site
 models are expressed in one unified form: an omega matrix W[branch-type,
 site-class] plus class frequencies, with either per-Q normalization (M0,
 branch models) or mixture normalization via per-branch-type Q factors
@@ -373,10 +373,9 @@ def nssites_extra_starts(NSsites: int, ncatG: int, fix_omega: bool):
 def _select_branch_type(P_all, btype, B: int):
     """P[v] = P_all[v, btype[v]] with btype STATIC (tree labels).
 
-    XLA's TPU gather for dynamic advanced indexing compiles pathologically
-    slowly (minutes) for [nnode, B, K, n, n] operands; with static branch
-    types a masked sum over the (small) B axis or static slices compile in
-    milliseconds and cost nothing at runtime."""
+    With static branch types a masked sum over the (small) B axis or
+    static slices replace a dynamic gather over [nnode, B, K, n, n]
+    operands: they compile in milliseconds and cost nothing at runtime."""
     btype = np.asarray(btype)
     if B == 1:
         return P_all[:, 0]
@@ -570,8 +569,8 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
             Qs = jax.vmap(
                 lambda w: codonmod.build_Q(graph, s, w, pi_d))(w_flat)
         else:
-            # dense scatter-free Q build (TPU scatters serialize; this is
-            # pure elementwise + one [3,4] gather per eval)
+            # dense scatter-free Q build (pure elementwise + one [3,4]
+            # gather per eval)
             pi_d = pi
             s_d = codonmod.mutation_dense(
                 graph, kappa if spec.hkyREV else kappa[0], pf3x4,
@@ -1326,7 +1325,7 @@ def fit(seqfile: str, treefile: str, spec: CodemlSpec | None = None,
 def fit_packed(data: seqio.PackedData, topo: Topology, spec: CodemlSpec,
                dtype=None) -> CodemlResult:
     """Fit a codon model.  dtype=None selects the device policy: f64 on
-    a CPU-default session, staged f32-chip + f64-host-polish on TPU
+    a CPU-default session, staged f32 fit + f64 polish on a GPU
     (optim.maximize_policy).  When a pattern mesh is engaged
     (parallel.sharding.engage_auto_mesh), the pattern axis is padded and
     the likelihood shard_maps across devices."""

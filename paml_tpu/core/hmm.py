@@ -6,7 +6,7 @@ matrix (bivariate-normal bin probabilities, src/tools.c:2641) and the
 `lfunAdG` forward recursion (src/treesub.c:7447) — here as either a
 sequential `lax.scan` or a log-scaled `associative_scan` over per-site
 K x K transition-weighted emission matrices, which parallelizes the site
-axis on TPU.
+axis.
 """
 from __future__ import annotations
 

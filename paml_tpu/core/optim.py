@@ -5,8 +5,7 @@ finite-difference gradients.  Here gradients are exact via `jax.grad`; the
 outer loop is host-side L-BFGS-B (scipy) driving a jitted value-and-grad —
 the same host-loop/device-eval structure as the reference, but each
 objective evaluation is one fused XLA program.  A fully on-device
-optax-L-BFGS path is provided for benchmark loops where host round-trips
-dominate.
+optax-L-BFGS path is provided for loops where host round-trips dominate.
 
 Parity target is the optimum (same lnL/MLEs), not the trajectory
 (SURVEY.md section 7).
@@ -76,7 +75,7 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
             # at a rate near its 999 bound).  A huge sentinel like 1e100
             # makes dcsrch's interpolation step underflow to ZERO and the
             # solver reports bogus ftol convergence at the start point
-            # (observed: MouseLemurs clock 3 f32-on-TPU).  Use a
+            # (observed: MouseLemurs clock 3 in f32).  Use a
             # moderate penalty anchored at the worst finite value seen,
             # so interpolation backtracks like an ordinary bad trial.
             anchor = vworst[0] if vworst[0] is not None else 1e8
@@ -85,7 +84,7 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
         elif not np.all(np.isfinite(g)):
             # a non-finite gradient at a FINITE value also poisons the
             # line search (NaN directional derivative; observed: horai
-            # REV+G5 f32-on-TPU).  Keep the value, zero the bad
+            # REV+G5 in f32).  Keep the value, zero the bad
             # components.
             vworst[0] = v if vworst[0] is None else max(vworst[0], v)
             g = np.where(np.isfinite(g), g, 0.0)
@@ -139,9 +138,9 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
 
 
 def _accelerator_default() -> bool:
-    """True when the session's default JAX device is an accelerator.
-    Respects `with jax.default_device(...)` so callers can force the
-    classic CPU path for a scope."""
+    """True when the session's default JAX device is an accelerator (a
+    GPU).  Respects `with jax.default_device(...)` so callers can force
+    the classic CPU path for a scope."""
     try:
         dd = jax.config.jax_default_device
         if dd is not None:
@@ -153,15 +152,14 @@ def _accelerator_default() -> bool:
 
 def maximize_policy(make_obj: Callable, multi_start=None,
                     tol: float = 1e-9, maxiter: int = 2000) -> FitResult:
-    """Device-policy fit driver (VERDICT r4 missing #3).
+    """Staged device fit driver.
 
     `make_obj(dtype)` must return `(neg_fn, x0, bounds)` built in that
-    dtype.  On an accelerator-default session (TPU), stage 1 runs the
-    f32 objective on the chip under loose tolerances (f32 value+grad is
-    the native fast path; emulated f64 on TPU is slow and NaN-prone),
-    then stage 2 polishes in f64 on the host CPU from the stage-1
-    optimum (few evals, parity-grade).  On a CPU-default session this is
-    exactly the classic f64 `maximize`.
+    dtype.  On an accelerator-default session (GPU), stage 1 runs the
+    f32 objective under loose tolerances, then stage 2 polishes in f64
+    from the top stage-1 optima (few evals, parity-grade); both stages
+    run on the default device.  On a CPU-default session this is exactly
+    the classic f64 `maximize`.
     """
     if not _accelerator_default():
         neg, x0, bounds = make_obj(jnp.float64)
@@ -172,27 +170,25 @@ def maximize_policy(make_obj: Callable, multi_start=None,
                     multi_start=multi_start, _stage_dtype=jnp.float32,
                     _ftol=1e-10, _gtol=1e-5, _restarts=4,
                     _return_all=True)
-    # polish the top stage-1 basins in f64 on the host: f32 can rank
+    # polish the top stage-1 basins in f64: f32 can rank
     # near-tied basins of a ridged surface (branch-site A, NSsites
     # mixtures) differently, so polishing only the f32 winner can lose
     # the true optimum by >1 lnL
     n_polish = min(3, len(res1))
-    cpu = jax.devices("cpu")[0]
     best = None
-    with jax.default_device(cpu):
-        neg64, _, _ = make_obj(jnp.float64)
-        for r1 in res1[:n_polish]:
-            r = maximize(neg64, r1.x, bounds, tol=tol, maxiter=maxiter)
-            if best is None or r.lnL > best.lnL:
-                best = r
-        # sanity net: a fit that cannot beat its own starting point is
-        # broken (e.g. the f32 stage line-searched into a bound trap the
-        # f64 polish cannot leave — observed on MouseLemurs clock 3).
-        # Fall back to the classic all-f64 fit from the original start.
-        lnl_x0 = -float(jax.jit(neg64)(jnp.asarray(x0, jnp.float64)))
-        if not np.isfinite(best.lnL) or best.lnL < lnl_x0 + 1e-9:
-            best = maximize(neg64, x0, bounds, tol=tol, maxiter=maxiter,
-                            multi_start=multi_start)
+    neg64, _, _ = make_obj(jnp.float64)
+    for r1 in res1[:n_polish]:
+        r = maximize(neg64, r1.x, bounds, tol=tol, maxiter=maxiter)
+        if best is None or r.lnL > best.lnL:
+            best = r
+    # sanity net: a fit that cannot beat its own starting point is broken
+    # (e.g. the f32 stage line-searched into a bound trap the f64 polish
+    # cannot leave — observed on MouseLemurs clock 3).  Fall back to the
+    # classic all-f64 fit from the original start.
+    lnl_x0 = -float(jax.jit(neg64)(jnp.asarray(x0, jnp.float64)))
+    if not np.isfinite(best.lnL) or best.lnL < lnl_x0 + 1e-9:
+        best = maximize(neg64, x0, bounds, tol=tol, maxiter=maxiter,
+                        multi_start=multi_start)
     best.n_eval += res1[0].n_eval
     return best
 
@@ -201,7 +197,7 @@ def maximize_auto(make_neg: Callable, neg_fn: Callable, x0, bounds,
                   multi_start=None, explicit_dtype=None) -> FitResult:
     """Fit-driver shim for the app layer: when the caller passed no
     explicit dtype and the default backend is an accelerator, use the
-    staged f32-chip / f64-host policy via `make_neg(dtype) -> neg_fn`;
+    staged f32 / f64-polish policy via `make_neg(dtype) -> neg_fn`;
     otherwise run the classic single-precision-choice `maximize` on the
     already-built `neg_fn`."""
     if explicit_dtype is None and _accelerator_default():
@@ -250,8 +246,8 @@ def maximize_jax_bounded(neg_fn: Callable, x0, bounds, maxiter: int = 500,
     """Whole-fit-on-device bounded optimization: box bounds mapped to an
     unconstrained chart via a scaled sigmoid, then optax L-BFGS under one
     jit (no host round-trip per objective evaluation — the reference's
-    ming2 and our scipy path both pay one per eval; on TPU that
-    round-trip dominates once an eval is ~ms).
+    ming2 and our scipy path both pay one per eval, which dominates once
+    an eval is ~ms).
 
     Terminates on gradient norm < tol OR when the objective improves by
     less than ftol*(1+|f|) for `patience` consecutive iterations (the

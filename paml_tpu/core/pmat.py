@@ -1,6 +1,6 @@
 """Transition-probability kernels P(t) = expm(Q t).
 
-TPU-first design: one *batched* spectral kernel computes P for all branches
+One *batched* spectral kernel computes P for all branches
 and site classes in a single einsum after a single symmetric
 eigendecomposition (replacing the reference's per-branch `PMatUVRoot`,
 src/tools.c:516, driven by `eigenQREV`, src/tools.c:5023).  A custom JVP
@@ -17,19 +17,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-# Matmul precision for the P(t) reconstruction einsums.  The TPU's
-# DEFAULT precision is a single bf16 pass (~1e-3 absolute error in P(t)
-# — far outside likelihood tolerance).  HIGH is the 3-pass bf16x3
-# decomposition (f32-faithful to ~2^-22, same as the pruning kernel's
-# "3pass" mode) at half the MXU cost of HIGHEST (6-pass); on CPU both
-# lower to native f32.  PAML_TPU_PMAT_PREC=highest restores 6-pass.
-import os as _os
-
-_PREC = {"high": jax.lax.Precision.HIGH,
-         "highest": jax.lax.Precision.HIGHEST,
-         "default": jax.lax.Precision.DEFAULT}[
-    _os.environ.get("PAML_TPU_PMAT_PREC", "high").lower()]
 
 # ---------------------------------------------------------------------------
 # generic reversible spectral kernel
@@ -80,36 +67,22 @@ def _phi(mu_k: jnp.ndarray, mu_l: jnp.ndarray) -> jnp.ndarray:
 
 
 def _eigh_refined(S: jnp.ndarray):
-    """Symmetric eigendecomposition.
-
-    The TPU f32 eigh reconstructs 61-state codon matrices to ~2e-7 —
-    adequate; the dominant TPU-vs-CPU numerics gap was the bf16 default
-    matmul precision in the reconstruction einsums (now pinned to
-    HIGHEST).  Hook kept as the single place to add iterative refinement
-    if a harder Q family ever needs it."""
+    """Symmetric eigendecomposition.  Hook kept as the single place to add
+    iterative refinement if a harder Q family ever needs it."""
     return jnp.linalg.eigh(S)
 
 
 # ---------------------------------------------------------------------------
 # f32 path: uniformization + masked squaring (no eigendecomposition)
 #
-# Two independent reasons the f32 spectral path is wrong for TPU:
-#
-# 1. ACCURACY.  The f32 spectral reconstruction carries ~2e-6 ABSOLUTE
-#    noise (eigh + 6-pass einsum roundoff).  On a short branch the true
-#    off-diagonal entries are O(Q_ij * t) — often below 1e-5 — so that
-#    noise is a huge RELATIVE error exactly where site likelihoods
-#    divide by it (measured: ~2.7 lnL units on abglobin at small t).
-# 2. SPEED.  XLA:TPU's eigh is an iterative QDWH/divide-and-conquer
-#    solver whose runtime is data-dependent: the clustered spectrum of a
-#    real codon Q takes ~0.5 ms per eval (profiled: 1/3 of a whole
-#    lnL+gradient step), 20x slower than on a random test matrix.
-#
-# Uniformization fixes both:
+# The f32 spectral reconstruction carries ~2e-6 ABSOLUTE noise (eigh +
+# einsum roundoff).  On a short branch the true off-diagonal entries are
+# O(Q_ij * t) — often below 1e-5 — so that noise is a huge RELATIVE error
+# exactly where site likelihoods divide by it.  Uniformization avoids it:
 #   P(t) = e^{-qt} sum_k (qt)^k/k! M^k,   M = I + Q/q >= 0,  q = max -Q_ii
 # has only positive terms — no cancellation — so every entry is computed
 # to ~n*K*eps RELATIVE accuracy, and it is nothing but K tiny matmuls
-# (MXU-friendly, no iteration).  Branches with a = q*t > 1 evaluate the
+# (no iterative solver).  Branches with a = q*t > 1 evaluate the
 # series at a/2^s (s = ceil(log2 a), masked per branch) and square s
 # times; squaring a positive matrix doubles the relative error per step,
 # which for the <= _UNIF_NSQ steps needed here stays ~1e-4 — and those
@@ -126,32 +99,14 @@ _UNIF_AMAX = 5.0      # series radius; above this, scale down and square
 _UNIF_NSQ = 6         # max squarings: exact up to q*t = 512, clamped above
 
 
-_POWS_SEQ = _os.environ.get("PAML_TPU_POWS", "seq") == "seq"
-
-
-def _mat_powers(M, K, prec, seq=True):
-    """[M^0..M^K] stacked on axis -3.  seq=True: the classic K-step
-    sequential chain; seq=False: log-depth batched doubling (one batched
-    matmul per round).  A/B on the v5e bench showed the sequential chain
-    slightly faster at K=24/G=3 (the doubling rounds' growing batches and
-    concats cost more than the launch gaps they remove); the knob stays
-    for other shapes (PAML_TPU_POWS=log)."""
+def _mat_powers(M, K):
+    """[M^0..M^K] stacked on axis -3 (K-step sequential chain)."""
     n = M.shape[-1]
     eye = jnp.broadcast_to(jnp.eye(n, dtype=M.dtype), M.shape)
-    if seq:
-        pows = [eye, M]
-        for _ in range(2, K + 1):
-            pows.append(jnp.matmul(pows[-1], M, precision=prec))
-        return jnp.stack(pows, axis=-3)
-    pows = jnp.stack([eye, M], axis=-3)             # [..., m, n, n]
-    while pows.shape[-3] < K + 1:
-        m = pows.shape[-3]
-        take = min(m, K + 1 - m)
-        top = pows[..., m - 1, :, :]                # M^(m-1)
-        new = jnp.matmul(pows[..., 1:take + 1, :, :], top[..., None, :, :],
-                         precision=prec)            # M^(m..m-1+take)
-        pows = jnp.concatenate([pows, new], axis=-3)
-    return pows
+    pows = [eye, M]
+    for _ in range(2, K + 1):
+        pows.append(jnp.matmul(pows[-1], M))
+    return jnp.stack(pows, axis=-3)
 
 
 def _pmat_rev_unif(Q: jnp.ndarray, pi: jnp.ndarray, t: jnp.ndarray):
@@ -168,7 +123,7 @@ def _pmat_rev_unif(Q: jnp.ndarray, pi: jnp.ndarray, t: jnp.ndarray):
     M = jnp.eye(n, dtype=Q.dtype) + Qm / q
     a = q * t                                       # [...] batch
     # M^k once (K tiny matmuls), then one weighted sum over k per branch
-    Mk = _mat_powers(M, _UNIF_K, _PREC, seq=_POWS_SEQ)  # [K+1, n, n]
+    Mk = _mat_powers(M, _UNIF_K)  # [K+1, n, n]
     # per-branch squaring count s = ceil(log2(a / AMAX)) clamped [0, NSQ];
     # with AMAX = 5 real datasets essentially never need squaring, so the
     # whole squaring loop sits behind a lax.cond and costs nothing unless
@@ -187,11 +142,11 @@ def _pmat_rev_unif(Q: jnp.ndarray, pi: jnp.ndarray, t: jnp.ndarray):
     for k in range(1, _UNIF_K + 1):
         ws.append(ws[-1] * a0 / k)
     w = jnp.stack(ws, axis=-1)                      # [..., K+1]
-    P = jnp.einsum("...k,kij->...ij", w, Mk, precision=_PREC)
+    P = jnp.einsum("...k,kij->...ij", w, Mk)
 
     def _square(P):
         for i in range(_UNIF_NSQ):
-            P2 = jnp.matmul(P, P, precision=_PREC)
+            P2 = jnp.matmul(P, P)
             P = jnp.where((s_b > i)[..., None, None], P2, P)
         return P
 
@@ -207,7 +162,7 @@ def _pmat_rev_spectral(Q: jnp.ndarray, pi: jnp.ndarray,
     L = U / sqp[:, None]              # [n, k]
     R = U.T * sqp[None, :]            # [k, n]
     e = jnp.exp(t[..., None] * lam)   # [..., k]
-    P = jnp.einsum("ik,...k,kj->...ij", L, e, R, precision=_PREC)
+    P = jnp.einsum("ik,...k,kj->...ij", L, e, R)
     return jnp.maximum(P, 0.0)
 
 
@@ -216,7 +171,7 @@ def pmat_rev(Q: jnp.ndarray, pi: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:
 
     Q: [n, n] reversible w.r.t. pi; pi: [n]; t: [...] any batch shape.
     Returns [..., n, n].  f64 uses the spectral form with a
-    Daleckii-Krein tangent; f32 (the TPU path) uses uniformization with
+    Daleckii-Krein tangent; f32 uses uniformization with
     masked squaring (see the design note above).
     """
     if jnp.result_type(Q) == jnp.float32:
@@ -232,7 +187,7 @@ def pmat_rev_multi(Qs: jnp.ndarray, pi: jnp.ndarray,
     Equivalent to vmap(pmat_rev) over G but keeps the f32 path's
     rarely-taken squaring loop behind ONE top-level lax.cond — a vmapped
     cond lowers to select and would execute the squaring matmuls on
-    every call (measured: ~25% of a 2k-branch branch-site eval).
+    every call.
     """
     if jnp.result_type(Qs) != jnp.float32:
         pi_ax = None if jnp.ndim(pi) == 1 else 0
@@ -248,7 +203,7 @@ def pmat_rev_multi(Qs: jnp.ndarray, pi: jnp.ndarray,
     q = jnp.maximum(jnp.max(-jnp.diagonal(Qm, axis1=-2, axis2=-1), -1),
                     1e-30)                          # [G]
     M = jnp.eye(n, dtype=Qs.dtype) + Qm / q[:, None, None]
-    Mk = _mat_powers(M, _UNIF_K, _PREC, seq=_POWS_SEQ)  # [G, K+1, n, n]
+    Mk = _mat_powers(M, _UNIF_K)  # [G, K+1, n, n]
     a = q * ts                                      # [..., G]
     s_b = jnp.ceil(jnp.log2(jnp.maximum(a / _UNIF_AMAX, 1.0)))
     s_b = jnp.minimum(s_b, float(_UNIF_NSQ))
@@ -257,11 +212,11 @@ def pmat_rev_multi(Qs: jnp.ndarray, pi: jnp.ndarray,
     for k in range(1, _UNIF_K + 1):
         ws.append(ws[-1] * a0 / k)
     w = jnp.stack(ws, axis=-1)                      # [..., G, K+1]
-    P = jnp.einsum("...gk,gkij->...gij", w, Mk, precision=_PREC)
+    P = jnp.einsum("...gk,gkij->...gij", w, Mk)
 
     def _square(P):
         for i in range(_UNIF_NSQ):
-            P2 = jnp.matmul(P, P, precision=_PREC)
+            P2 = jnp.matmul(P, P)
             P = jnp.where((s_b > i)[..., None, None], P2, P)
         return P
 
@@ -278,7 +233,7 @@ def _pmat_rev_jvp(primals, tangents):
     R = U.T * sqp[None, :]
     mu = t[..., None] * lam                       # [..., k]
     e = jnp.exp(mu)
-    P = jnp.einsum("ik,...k,kj->...ij", L, e, R, precision=_PREC)
+    P = jnp.einsum("ik,...k,kj->...ij", L, e, R)
 
     # dS from dQ and dpi:  S = D^{1/2} Q D^{-1/2} on the pi > 0 states
     dQ = jnp.zeros_like(Q) if isinstance(dQ, jax.custom_derivatives.SymbolicZero) else dQ
@@ -295,17 +250,17 @@ def _pmat_rev_jvp(primals, tangents):
     dS = 0.5 * (dS + dS.T)
 
     # tangent of expm(S t) in the eigenbasis (Daleckii-Krein)
-    G = jnp.einsum("ki,ij,jl->kl", U.T, dS, U, precision=_PREC)  # [k, l]
+    G = jnp.einsum("ki,ij,jl->kl", U.T, dS, U)  # [k, l]
     # dM = t*dS + dt*S  ->  eigen-coords: t*G + dt*diag(lam)
     Phi = _phi(mu[..., :, None], mu[..., None, :])        # [..., k, l]
     dM_eig = t[..., None, None] * G + dt[..., None, None] * jnp.diag(lam)
     dE = dM_eig * Phi                              # [..., k, l]
-    dP_core = jnp.einsum("ik,...kl,lj->...ij", L, dE, R, precision=_PREC)
+    dP_core = jnp.einsum("ik,...kl,lj->...ij", L, dE, R)
 
     # contributions from d(D^{-1/2}) and d(D^{1/2}):
     # P = D^{-1/2} E' D^{1/2} with E' = U e U^T
     dinvsqp = -dsqp / pi                           # d(1/sqrt(pi))
-    Ep = jnp.einsum("ik,...k,jk->...ij", U, e, U, precision=_PREC)
+    Ep = jnp.einsum("ik,...k,jk->...ij", U, e, U)
     dP_pi = (dinvsqp[:, None] * sqp[None, :] * Ep
              + (1.0 / sqp)[:, None] * dsqp[None, :] * Ep)
     # match the primal's max(P, 0) clip (otherwise the value under AD

@@ -1,5 +1,4 @@
-"""Felsenstein pruning on TPU: level-batched contraction with an analytic
-adjoint.
+"""Felsenstein pruning: level-batched contraction with an analytic adjoint.
 
 Replaces the reference's recursive `ConditionalPNode` (src/codeml.c:3526,
 src/baseml.c:1517).  Two execution strategies share one public API:
@@ -12,7 +11,7 @@ src/baseml.c:1517).  Two execution strategies share one public API:
   always-on version of the reference's scaling machinery
   (`SetNodeScale`/`NodeScale`, src/treesub.c:7177-7227) accumulated in log
   space.  All indices are static Python ints, so XLA sees straight-line
-  code with large batched matmuls (MXU work) and no dynamic gathers.
+  code with large batched matmuls and no dynamic gathers.
   All tip contributions are computed up front in a single einsum.
 
 * **Scan path** (fallback for very deep trees, > _MAX_UNROLL levels): a
@@ -44,28 +43,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from .topology import Topology
-
-# matmul precision for the pruning einsums.  On TPU, f32 matmuls are
-# synthesized from bfloat16 passes; "highest" (6 passes) gives full f32
-# accuracy, "float32" (3 passes) ~f32, "bfloat16" 1 pass.  Measured on
-# codon workloads the 3-pass product is indistinguishable from 6-pass
-# (the residual TPU-vs-CPU lnL gap is set by other f32 ops), so 3-pass
-# is the default; bump with set_matmul_precision("highest") if a model
-# family ever shows matmul-limited accuracy.
-_PRECISION = jax.lax.Precision.HIGH
-
-
-def set_matmul_precision(p) -> None:
-    """Set the einsum precision for the pruning kernels.
-
-    p: jax.lax.Precision or one of "highest", "float32", "bfloat16"."""
-    global _PRECISION
-    if isinstance(p, str):
-        p = {"highest": jax.lax.Precision.HIGHEST,
-             "float32": jax.lax.Precision.HIGH,
-             "bfloat16": jax.lax.Precision.DEFAULT}[p]
-    _PRECISION = p
-
 
 _MAX_UNROLL = 192          # levels; beyond this fall back to lax.scan
 
@@ -119,11 +96,9 @@ def _schedule(topo: Topology) -> tuple[np.ndarray, np.ndarray]:
 
 
 # Internal layout note: the level path keeps partials as [C, n, H] — the
-# large pattern axis in the TPU lane (last) dimension.  With n = 61 states,
-# the [H, n] layout pads BOTH matmul operand minor dims from 61 to the
-# 128-lane tile (~23% MXU utilization); [n, H] pads only the contraction
-# dim (~48%) and roughly halves padded HBM traffic for the elementwise
-# product/rescale stages.
+# large pattern axis last (contiguous), so each node's contraction is a
+# batched [n, n] x [n, H] product and the elementwise product/rescale
+# stages stream over contiguous pattern rows.
 
 
 def _is_state_tips(tips) -> bool:
@@ -142,7 +117,7 @@ def _tip_contribs(P, tipsT, topo: Topology):
         # ctip[t, c, j, h] = P[t, c, j, states[t, h]]
         idx = tipsT[:, None, None, :]                      # [ns,1,1,H]
         return jnp.take_along_axis(P[:ns], idx, axis=3)
-    return jnp.einsum("tih,tcji->tcjh", tipsT, P[:ns], precision=_PRECISION)
+    return jnp.einsum("tih,tcji->tcjh", tipsT, P[:ns])
 
 
 def _forward_levels(P, tipsT, topo: Topology, want_contribs=False):
@@ -177,8 +152,7 @@ def _forward_levels(P, tipsT, topo: Topology, want_contribs=False):
         if emit_nodes:
             S = jnp.stack(emit_vals)                          # [W,C,n,H]
             Pn = P[np.array(emit_nodes)]                      # [W,C,n,n]
-            cv = jnp.einsum("wcih,wcji->wcjh", S, Pn,
-                            precision=_PRECISION)
+            cv = jnp.einsum("wcih,wcji->wcjh", S, Pn)
             for w, node in enumerate(emit_nodes):
                 c[node] = cv[w]
     if want_contribs:
@@ -257,11 +231,9 @@ def _lnf_lvl_bwd(topo, res, gbar):
                 (jnp.broadcast_to(tip_onehotT(k)[None], (C, n, H))
                  if k < ns else s[k]) for k in kidflat])
             U = U.reshape(W, K, C, n, H)
-            dPk = jnp.einsum("wkcjh,wkcih->wkcji", G, U,
-                             precision=_PRECISION)
+            dPk = jnp.einsum("wkcjh,wkcih->wkcji", G, U)
             Pk = P[np.array(kidflat)].reshape(W, K, C, n, n)
-            Ak = jnp.einsum("wkcjh,wkcji->wkcih", G, Pk,
-                            precision=_PRECISION)
+            Ak = jnp.einsum("wkcjh,wkcji->wkcih", G, Pk)
             for w, (node, kids) in enumerate(grp):
                 for k, kid in enumerate(kids):
                     dP[kid] = dPk[w, k]
@@ -330,8 +302,7 @@ def _forward_levels_wide(P, tipsT, topo: Topology):
         msafe = jnp.where(mm > 0, mm, 1.0)
         sv = prod / msafe[..., None, :]
         logm = logm + jnp.sum(jnp.log(msafe), axis=0)
-        cv = jnp.einsum("wcih,wcji->wcjh", sv, P[nodes],
-                        precision=_PRECISION)
+        cv = jnp.einsum("wcih,wcji->wcjh", sv, P[nodes])
         CBUF = CBUF.at[nodes].set(cv)
         SBUF = SBUF.at[nodes - ns].set(sv)
         MBUF = MBUF.at[nodes - ns].set(msafe)
@@ -371,7 +342,7 @@ def _lnf_wide_bwd(topo, res, gbar):
                          dtype=np.int32)
     if len(int_nodes):
         cv = jnp.einsum("wcih,wcji->wcjh", SBUF[int_nodes - ns],
-                        P[int_nodes], precision=_PRECISION)
+                        P[int_nodes])
         CBUF = CBUF.at[int_nodes].set(cv)
 
     # child partials (tips as one-hot) for the dP outer products
@@ -404,10 +375,9 @@ def _lnf_wide_bwd(topo, res, gbar):
         G = jnp.clip(jnp.nan_to_num(G, nan=0.0, posinf=cap, neginf=-cap),
                      -cap, cap)
         Us = UEXT[kids]
-        dPk = jnp.einsum("wkcjh,wkcih->wkcji", G, Us, precision=_PRECISION)
+        dPk = jnp.einsum("wkcjh,wkcih->wkcji", G, Us)
         DPBUF = DPBUF.at[kids].set(dPk)    # each child has one parent
-        Ak = jnp.einsum("wkcjh,wkcji->wkcih", G, P[kids],
-                        precision=_PRECISION)
+        Ak = jnp.einsum("wkcjh,wkcji->wkcih", G, P[kids])
         int_kid = kids >= ns                                # static mask
         if int_kid.any():
             ABUF = ABUF.at[np.clip(kids - ns, 0, nint - 1)].add(
@@ -452,8 +422,7 @@ def _forward_buffers(P, tips, topo: Topology):
         part = jnp.where(is_tip[:, None, None, None],
                          tipvals[:, None, :, :], intvals)
         Pk = P[jnp.clip(kids, 0, nnode - 1)]
-        contrib = jnp.einsum("kchi,kcji->kchj", part, Pk,
-                             precision=_PRECISION)
+        contrib = jnp.einsum("kchi,kcji->kchj", part, Pk)
         contrib = jnp.where(valid[:, None, None, None], contrib, 1.0)
         # unrolled product over the (static, small) child axis: jnp.prod's
         # reduce_prod gradient divides by the inputs and NaNs on exact
@@ -533,7 +502,7 @@ def _lnf_scan_bwd(topo, res, gbar):
         U = jnp.where(is_tip[:, None, None, None],
                       tipvals[:, None, :, :], intvals)          # [K,C,H,n]
         Pk = P[jnp.clip(kids, 0, nnode - 1)]                    # [K,C,n,n]
-        c = jnp.einsum("kchi,kcji->kchj", U, Pk, precision=_PRECISION)
+        c = jnp.einsum("kchi,kcji->kchj", U, Pk)
         c = jnp.where(valid[:, None, None, None], c, 1.0)
         K = c.shape[0]
         # leave-one-out products over the child axis
@@ -553,10 +522,10 @@ def _lnf_scan_bwd(topo, res, gbar):
         cap = 1e12
         G = jnp.clip(jnp.nan_to_num(G, nan=0.0, posinf=cap, neginf=-cap),
                      -cap, cap)
-        dPk = jnp.einsum("kchj,kchi->kcji", G, U, precision=_PRECISION)
+        dPk = jnp.einsum("kchj,kchi->kcji", G, U)
         dP = dP.at[jnp.clip(kids, 0, nnode - 1)].add(
             jnp.where(valid[:, None, None, None], dPk, 0.0))
-        Ak = jnp.einsum("kchj,kcjn->kchn", G, Pk, precision=_PRECISION)
+        Ak = jnp.einsum("kchj,kcjn->kchn", G, Pk)
         int_kid = (kids >= ns)
         Abuf = Abuf.at[jnp.clip(kids - ns, 0, nint - 1)].add(
             jnp.where(int_kid[:, None, None, None], Ak, 0.0))
@@ -581,10 +550,9 @@ _class_site_lnf_scan.defvjp(_lnf_scan_fwd, _lnf_scan_bwd)
 # Optional mesh for explicit pattern-axis partitioning.  When set (via
 # set_pattern_mesh), class_site_lnf shard_maps the whole per-pattern
 # computation over the mesh: P/pi replicated, tips split on the pattern
-# axis, output split on the pattern axis.  This is what lets the Pallas
-# kernels run on multi-device meshes — XLA cannot partition a pallas
-# custom call on its own, but inside shard_map each device runs the
-# kernel on its local shard (SURVEY.md section 2.3: DP over patterns).
+# axis, output split on the pattern axis.  Each device runs the level /
+# wide / scan path on its own shard, and the fpatt-weighted sum over
+# patterns becomes one psum (SURVEY.md section 2.3: DP over patterns).
 _pattern_mesh = None
 
 
@@ -602,8 +570,7 @@ def _class_site_lnf_sharded(P, tips, topo: Topology, pi):
     mesh, ax = _pattern_mesh
     tips_spec = PS(None, ax) if _is_state_tips(tips) else PS(None, ax, None)
     f = jax.shard_map(
-        lambda P_, t_, pi_: _class_site_lnf_local(P_, t_, topo, pi_,
-                                                  in_shard=True),
+        lambda P_, t_, pi_: _class_site_lnf_local(P_, t_, topo, pi_),
         mesh=mesh, in_specs=(PS(), tips_spec, PS()),
         out_specs=PS(None, ax), check_vma=False)
     return f(P, tips, pi)
@@ -617,11 +584,10 @@ def class_site_lnf(P, tips, topo: Topology, pi):
     Gradients w.r.t. P and pi via the analytic adjoint; tips are data
     (zero gradient).
 
-    On TPU, codon/aa-sized problems that fit VMEM dispatch to the fused
-    Pallas kernel (pallas_pruning.py); everything else uses the batched
-    einsum paths below.  Under set_pattern_mesh, the whole computation is
-    shard_mapped over the pattern axis so the fused kernel also runs on
-    multi-device meshes.
+    Trees up to _MAX_UNROLL levels take the level path (the wide path
+    above _WIDE_NNODE nodes); deeper trees take the scan path.  Under
+    set_pattern_mesh, the whole computation is shard_mapped over the
+    pattern axis.
     """
     if _pattern_mesh is not None:
         mesh, _ = _pattern_mesh
@@ -633,12 +599,7 @@ def class_site_lnf(P, tips, topo: Topology, pi):
     return _class_site_lnf_local(P, tips, topo, pi)
 
 
-def _class_site_lnf_local(P, tips, topo: Topology, pi, in_shard=False):
-    from . import pallas_pruning
-    out = pallas_pruning.maybe_pallas_lnf(P, tips, topo, pi,
-                                          in_shard=in_shard)
-    if out is not None:
-        return out
+def _class_site_lnf_local(P, tips, topo: Topology, pi):
     if len(_levels(topo)) <= _MAX_UNROLL:
         if topo.nnode > _WIDE_NNODE:
             return _class_site_lnf_wide(P, tips, topo, pi)
@@ -671,7 +632,7 @@ def lnL_chunked(P, tips, topo, pi, class_w, fpatt, n_chunks: int):
     """Total log-likelihood with the pattern axis processed in chunks.
 
     For very large (taxa x patterns) problems the full partials buffer
-    (O(n_internal * C * n * H)) does not fit in HBM; this maps over H
+    (O(n_internal * C * n * H)) does not fit in device memory; this maps over H
     chunks with rematerialization so peak memory is one chunk's buffers.
     Gradients flow (the chunk forward is recomputed in the backward pass).
     H must be divisible by n_chunks (pad fpatt with zeros to round up —

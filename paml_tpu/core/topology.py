@@ -1,6 +1,6 @@
 """Array-based tree topology for the likelihood engine.
 
-TPU-first design: trees are integer arrays (parent pointers, padded child
+Design: trees are integer arrays (parent pointers, padded child
 lists, a postorder schedule), not linked nodes (contrast the reference's
 ``struct TREEN *nodes`` with son pointers, e.g. src/codeml.c:138-147).  All
 shapes are static for a given (ns, topology) so a single XLA compilation

@@ -1,6 +1,6 @@
 """Codon substitution models (the codeml codon family).
 
-TPU-first design: the codon graph (which sense-codon pairs differ at one
+Design: the codon graph (which sense-codon pairs differ at one
 position, transition vs transversion, synonymous vs not) is precomputed
 once per genetic code as static index arrays; Q construction is then a
 vectorized scatter, and NSsites class matrices are formed as
@@ -354,8 +354,8 @@ def selection_coefficients(graph: CodonGraph, pf, pi, kappa, omega,
 def _dense_tables(icode: int):
     """Dense [n, n] constant tables for scatter-free Q construction.
 
-    TPU scatters serialize; with these masks the per-evaluation Q build
-    is pure elementwise/gather work (reference semantics identical to
+    With these masks the per-evaluation Q build is pure
+    elementwise/gather work (reference semantics identical to
     eigenQcodon's pair loop, src/codeml.c:3229-3301)."""
     g = codon_graph(icode)
     n = g.n

@@ -1,11 +1,12 @@
 """Multi-host execution (SURVEY.md section 5.8).
 
-The reference has no distributed runtime (files are its only IPC); the
-TPU-native equivalent is one SPMD program per host joined through
-`jax.distributed.initialize`, with XLA collectives over ICI within a
-slice and DCN across slices.  This module is the single entry point: call
-`initialize()` on every host before building meshes; `global_data_mesh()`
-then lays the site-pattern axis over every chip in the job.
+The reference has no distributed runtime (files are its only IPC); here
+it is one SPMD program per host joined through
+`jax.distributed.initialize`, with XLA collectives (NCCL over NVLink
+within a host, the network across hosts).  This module is the single
+entry point: call `initialize()` on every host before building meshes;
+`global_data_mesh()` then lays the site-pattern axis over every GPU in
+the job.
 
 The only collectives the likelihood needs are psum (lnL, gradients) and
 occasional all_gathers (site posteriors for output), both inserted by XLA
@@ -23,22 +24,15 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Join the multi-host job (idempotent).
 
-    With no arguments, JAX auto-detects the cluster (TPU pod metadata or
-    the standard JAX_COORDINATOR_* environment variables).  Single-host
-    runs may skip this entirely.
+    Without arguments JAX looks for a cluster it can detect (a scheduler
+    such as SLURM); elsewhere pass the coordinator address
+    (`host:port`), the number of processes and this process's id.
+    Single-host runs may skip this entirely.
     """
     # NOTE: do not probe jax.process_count() here — it initializes the
     # XLA backend, after which jax.distributed.initialize refuses to run
-    try:
-        if jax.distributed.is_initialized():
-            return                 # already joined
-    except AttributeError:         # older JAX: fall back to private state
-        try:
-            from jax._src.distributed import global_state
-            if getattr(global_state, "client", None) is not None:
-                return
-        except ImportError:  # pragma: no cover - private API moved
-            pass
+    if jax.distributed.is_initialized():
+        return                     # already joined
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -52,7 +46,7 @@ def initialize(coordinator_address: str | None = None,
 
 
 def global_data_mesh(axis: str = "data") -> Mesh:
-    """1-D mesh over every chip in the job (all hosts)."""
+    """1-D mesh over every device in the job (all hosts)."""
     return Mesh(np.asarray(jax.devices()), (axis,))
 
 

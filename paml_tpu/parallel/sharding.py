@@ -5,9 +5,9 @@ axis here is new design.  The scaling model: the site-pattern axis is pure
 data parallelism (per-pattern likelihoods are independent; the only
 cross-pattern operation is the final fpatt-weighted reduction), so we lay
 patterns out across a 1-D "data" mesh axis, replicate parameters, and let
-XLA turn the final reduction into a psum over ICI.  Larger runs add a
-"loci" axis for multi-locus dating (mcmctree) batched on a second mesh
-dimension.
+XLA turn the final reduction into a psum, which it hands to NCCL.  The
+GPUs of one host are joined all to all by NVLink, so the mesh follows
+the algorithm alone.
 """
 from __future__ import annotations
 
@@ -77,8 +77,7 @@ def shard_data_multihost(mesh: Mesh, tip_partials, fpatt,
 
 def engage_auto_mesh(min_devices: int = 2, axis: str = "data"):
     """Engage the global pattern mesh over every local device when more
-    than one is attached (production entry points call this; VERDICT r4
-    missing #7 — previously only tests ever set the mesh).  Returns the
+    than one is attached (the codeml/baseml CLI calls this).  Returns the
     Mesh or None.  Pass through to pruning.set_pattern_mesh(None) to
     disable."""
     devs = jax.devices()

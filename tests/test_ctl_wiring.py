@@ -231,8 +231,8 @@ ncatG = 8
 def test_myxo_fmutsel_ctl_end_to_end(tmp_path, monkeypatch):
     """myxo FMutSel ctl (CodonFreq=7, estFreq=0, gappy .aln alignment,
     cleandata=0): fresh reference run gives lnL -12249.403354 (np 26).
-    Regression for the CLI silently running f64 fits on the emulated-f64
-    TPU backend (an FMutSel fit NaN'd out there)."""
+    Regression for an FMutSel fit that went NaN when the CLI ran its f64
+    fits on an accelerator backend."""
     from paml_tpu.__main__ import run_codeml
 
     ctl = tmp_path / "codeml.ctl"

@@ -1,6 +1,6 @@
 """float32 numerics parity (SURVEY.md section 7 precision policy).
 
-The TPU compute path runs f32 partials with per-level rescaling; these
+The staged GPU fit runs f32 partials with per-level rescaling; these
 tests pin the f32-vs-f64 envelope on real datasets:
 
 * per-pattern log-likelihoods computed in f32 and accumulated in f64 stay
@@ -11,8 +11,8 @@ tests pin the f32-vs-f64 envelope on real datasets:
 * optimizing entirely in f32 reaches the same optimum as f64 within
   0.05 lnL and matching MLEs.
 
-On the real chip the same check runs inside bench.py
-(tpu_vs_cpu_f32_lnl_absdiff).
+On the GPU, chip_smoke.py checks the f32 paths against the float64
+reference at bench widths.
 """
 import jax.numpy as jnp
 import numpy as np

@@ -13,15 +13,37 @@ import pytest
 import conftest  # noqa: F401
 from paml_tpu.apps import baseml as baseml_app
 from paml_tpu.apps import codeml as codeml_app
+from paml_tpu.core import pruning
 from paml_tpu.core.topology import from_treenode
 from paml_tpu.io import seqio, treeio
+from paml_tpu.models.codon import codon_graph
 from paml_tpu.parallel.sharding import (data_mesh, pad_patterns, replicate,
                                         shard_data)
 
-BROWN = (conftest.ref_path("examples", "brown.nuc"),
-         conftest.ref_path("examples", "brown.trees"))
-ABG = (conftest.ref_path("examples", "abglobin.nuc"),
-       conftest.ref_path("examples", "abglobin.trees"))
+# 7 taxa, unrooted (trifurcating root), branch lengths as starting values
+TREE7 = ("((t0: 0.10, t1: 0.20): 0.12, (t2: 0.05, (t3: 0.30, t4: 0.15): "
+         "0.08): 0.10, (t5: 0.22, t6: 0.04): 0.06);")
+
+
+def _seeded_data(nstates, npatt, seed, seqtype):
+    """Random one-hot alignment patterns on TREE7 (npatt deliberately not
+    a multiple of the mesh size, so shard_data pads)."""
+    rng = np.random.default_rng(seed)
+    names = [f"t{i}" for i in range(7)]
+    states = rng.integers(0, nstates, size=(7, npatt))
+    tips = np.zeros((7, npatt, nstates))
+    tips[np.arange(7)[:, None], np.arange(npatt)[None, :], states] = 1.0
+    fpatt = rng.integers(1, 5, size=npatt).astype(np.float64)
+    data = seqio.PackedData(
+        names=names, seqtype=seqtype, nstates=nstates, tip_partials=tips,
+        fpatt=fpatt, ls=int(fpatt.sum()), posG=np.array([0, npatt]),
+        base_freqs=tips.sum((0, 1)) / tips.sum())
+    topo = from_treenode(treeio.parse_newick(TREE7), names)
+    return data, topo
+
+
+def _codon_data(seed=1, npatt=61):
+    return _seeded_data(codon_graph(0).n, npatt, seed, seqtype=1)
 
 
 def _mesh():
@@ -30,10 +52,7 @@ def _mesh():
 
 
 def test_codon_lnl_sharded_equals_replicated():
-    aln = seqio.read_alignment(ABG[0], 1)
-    data = seqio.pack(aln, cleandata=True, icode=0)
-    trees = treeio.read_trees(ABG[1], data.names)
-    topo = from_treenode(trees[0], data.names)
+    data, topo = _codon_data(seed=1)
     spec = codeml_app.CodemlSpec(NSsites=3, ncatG=3, cleandata=True)
     neg_lnl, unpack, classes_for, x0, bounds, pi = \
         codeml_app.make_codon_objective(data, topo, spec)
@@ -49,10 +68,7 @@ def test_codon_lnl_sharded_equals_replicated():
 
 
 def test_codon_grad_sharded_equals_replicated():
-    aln = seqio.read_alignment(ABG[0], 1)
-    data = seqio.pack(aln, cleandata=True, icode=0)
-    trees = treeio.read_trees(ABG[1], data.names)
-    topo = from_treenode(trees[0], data.names)
+    data, topo = _codon_data(seed=2)
     spec = codeml_app.CodemlSpec(cleandata=True)
     neg_lnl, *_r = codeml_app.make_codon_objective(data, topo, spec)
     x0 = _r[2]
@@ -78,10 +94,7 @@ def test_pad_patterns_is_exact():
 
 
 def test_baseml_lnl_sharded_equals_replicated():
-    aln = seqio.read_alignment(BROWN[0], 0)
-    data = seqio.pack(aln, cleandata=True)
-    trees = treeio.read_trees(BROWN[1], data.names)
-    topo = from_treenode(trees[0], data.names)
+    data, topo = _seeded_data(4, 45, seed=3, seqtype=0)
     spec = baseml_app.BasemlSpec(model="HKY85", cleandata=True)
     neg_lnl, unpack, x0, bounds = baseml_app.make_objective(data, topo, spec)
     x = jnp.asarray(np.asarray(x0, float))
@@ -98,7 +111,7 @@ def test_baseml_lnl_sharded_equals_replicated():
 
 
 # ---------------------------------------------------------------------------
-# Pallas kernels under shard_map (pattern axis partitioned over the mesh)
+# pruning under set_pattern_mesh (shard_map over the pattern axis)
 # ---------------------------------------------------------------------------
 
 
@@ -114,88 +127,45 @@ def _random_codon_problem(ns=9, H=256, C=3, n=61, seed=0):
     mid1, mid2 = ns // 3, 2 * ns // 3
     nwk = f"({bal(0, mid1)},{bal(mid1, mid2)},{bal(mid2, ns)});"
     topo = from_treenode(treeio.parse_newick(nwk), names)
-    P = rng.gamma(1.0, 1.0, size=(topo.nnode, C, n, n)).astype(np.float32)
+    P = rng.gamma(1.0, 1.0, size=(topo.nnode, C, n, n))
     P = P / P.sum(axis=-1, keepdims=True)
-    P = 0.7 * np.eye(n, dtype=np.float32)[None, None] + 0.3 * P
-    pi = rng.dirichlet(np.ones(n), size=C).astype(np.float32)
+    P = 0.7 * np.eye(n)[None, None] + 0.3 * P
+    pi = rng.dirichlet(np.ones(n), size=C)
     tips = rng.integers(0, n, size=(ns, H)).astype(np.int32)
     return jnp.asarray(P), jnp.asarray(tips), topo, jnp.asarray(pi)
 
 
-def test_pallas_kernel_under_shard_map(monkeypatch):
-    """The fused Pallas kernel (interpret mode on CPU) must run on each
-    device's pattern shard under shard_map and agree with the replicated
-    einsum value — the production multi-device fast path (VERDICT r3
-    item 3: remove the device_count>1 mutual exclusion)."""
-    from paml_tpu.core import pallas_pruning, pruning
-
-    monkeypatch.setenv("PAML_TPU_PALLAS", "1")
-    P, tips, topo, pi = _random_codon_problem(seed=11)
-    ref = np.asarray(pruning._class_site_lnf_lvl(P, tips, topo, pi))
-    mesh = _mesh()
-    pruning.set_pattern_mesh(mesh)
+def _on_mesh(fn):
+    pruning.set_pattern_mesh(_mesh())
     try:
-        got = np.asarray(pruning.class_site_lnf(P, tips, topo, pi))
+        return fn()
     finally:
         pruning.set_pattern_mesh(None)
-    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-6)
 
 
-def test_pallas_grad_under_shard_map(monkeypatch):
-    from paml_tpu.core import pruning
+def test_pattern_mesh_lnf_equals_replicated():
+    """class_site_lnf shard_mapped over the 8-device pattern mesh must
+    equal the replicated value (per-pattern work is independent)."""
+    P, tips, topo, pi = _random_codon_problem(seed=11)
+    ref = np.asarray(pruning.class_site_lnf(P, tips, topo, pi))
+    got = np.asarray(_on_mesh(
+        lambda: pruning.class_site_lnf(P, tips, topo, pi)))
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
 
-    monkeypatch.setenv("PAML_TPU_PALLAS", "1")
+
+def test_pattern_mesh_grad_equals_replicated():
     P, tips, topo, pi = _random_codon_problem(ns=7, H=128, C=2, seed=12)
-    w = jnp.asarray(np.random.default_rng(3).uniform(0.5, 2.0, size=128),
-                    jnp.float32)
+    w = jnp.asarray(np.random.default_rng(3).uniform(0.5, 2.0, size=128))
 
     def obj(P_, pi_):
         return jnp.sum(w * jnp.sum(
             pruning.class_site_lnf(P_, tips, topo, pi_), axis=0))
 
-    vr, (gPr, gpir) = jax.value_and_grad(
-        lambda P_, pi_: jnp.sum(w * jnp.sum(
-            pruning._class_site_lnf_lvl(P_, tips, topo, pi_), axis=0)),
-        argnums=(0, 1))(P, pi)
-    mesh = _mesh()
-    pruning.set_pattern_mesh(mesh)
-    try:
-        vp, (gPp, gpip) = jax.value_and_grad(obj, argnums=(0, 1))(P, pi)
-    finally:
-        pruning.set_pattern_mesh(None)
-    np.testing.assert_allclose(float(vp), float(vr), rtol=1e-6)
+    vr, (gPr, gpir) = jax.value_and_grad(obj, argnums=(0, 1))(P, pi)
+    vp, (gPp, gpip) = _on_mesh(
+        lambda: jax.value_and_grad(obj, argnums=(0, 1))(P, pi))
+    np.testing.assert_allclose(float(vp), float(vr), rtol=1e-12)
     np.testing.assert_allclose(np.asarray(gPp), np.asarray(gPr),
-                               rtol=3e-5, atol=3e-5)
+                               rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose(np.asarray(gpip), np.asarray(gpir),
-                               rtol=3e-5, atol=3e-5)
-
-
-def test_codon_objective_sharded_pallas_end_to_end(monkeypatch):
-    """Full codeml M0 objective value+grad with the pattern mesh set and
-    the Pallas fast path forced: sharded == replicated (f32 kernels, so
-    compare at f32-appropriate tolerance)."""
-    from paml_tpu.core import pruning
-
-    aln = seqio.read_alignment(ABG[0], 1)
-    data = seqio.pack(aln, cleandata=True, icode=0)
-    topo = from_treenode(treeio.read_trees(ABG[1], data.names)[0],
-                         data.names)
-    spec = codeml_app.CodemlSpec(cleandata=True)
-    neg_lnl, *_rest = codeml_app.make_codon_objective(data, topo, spec)
-    x = jnp.asarray(_rest[2])
-    v_rep = float(jax.jit(neg_lnl)(x))
-    g_rep = np.asarray(jax.jit(jax.grad(neg_lnl))(x))
-
-    mesh = _mesh()
-    tips_s, fpatt_s = shard_data(mesh, data.tip_partials, data.fpatt)
-    xs = replicate(mesh, x)
-    pruning.set_pattern_mesh(mesh)
-    try:
-        with mesh:
-            v_sh = float(jax.jit(neg_lnl.with_data)(xs, tips_s, fpatt_s))
-            g_sh = np.asarray(jax.jit(jax.grad(
-                lambda p: neg_lnl.with_data(p, tips_s, fpatt_s)))(xs))
-    finally:
-        pruning.set_pattern_mesh(None)
-    assert abs(v_sh - v_rep) <= 1e-6 * max(1.0, abs(v_rep))
-    np.testing.assert_allclose(g_sh, g_rep, rtol=1e-6, atol=1e-6)
+                               rtol=1e-9, atol=1e-9)
